@@ -1,9 +1,7 @@
-"""Probe the k=21 compaction chain at the driver-bench size (round 2).
+"""Probe the k=21 compaction chain at the bench size.
 
 The bench (bench/steps.bench_sparse_step) ingests 50.33M windows and runs
-ONE raw compaction; at 175 Mbase/s measured the chain is the ceiling.
-This probe times each piece at that exact size so the next cut follows
-measured truth:
+ONE raw compaction.  This probe times each piece at that exact size:
 
   sort2      the unstable 2-key (hi, lo) sort alone
   chain      full _compact_raw chain (sort + rle_pos + count_nonzero)
@@ -24,16 +22,18 @@ import sys
 import time
 from functools import partial
 
-from bench.steps import setup_jax, _sync
+import jax
+
+from bench.steps import setup_jax
 
 
 def _time(fn, args, reps, sync_arr_of):
     out = fn(*args)
-    _sync(sync_arr_of(out))
+    jax.block_until_ready(sync_arr_of(out))
     t0 = time.perf_counter()
     for _ in range(reps):
         out = fn(*args)
-    _sync(sync_arr_of(out))
+    jax.block_until_ready(sync_arr_of(out))
     return (time.perf_counter() - t0) / reps
 
 

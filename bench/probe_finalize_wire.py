@@ -1,26 +1,19 @@
-"""Round-5 probe: finalize coded-wire measurement (round-4 verdict
-weak #2 / item 3).
+"""Probe: finalize coded-wire measurement (ROADMAP D6).
 
-BASELINE metric 2 (finalize_merge_s_k21, 13.6-15.8 s on the pinned
-100.7M-window store) was called "transfer-bound at ~4 B/entry", and a
-delta-coded wire was dismissed by a fixed-width MODEL.  This probe
-replaces the model with measurement:
+Measures, on the pinned 100.7M-window k=21 store (bench.py's
+finalize_merge_s_k21 geometry):
 
-  1. phase decomposition of the current ordered finalize on the pinned
-     chr-scale store (PhaseTimers: global_sort / slice / d2h_start /
-     d2h / counts) — how much of the 13.6 s is actually the wire;
-  2. raw-transfer A/B at the live size N: one u32 plane (today's lo
-     wire) vs three u8 byte planes (the candidate 3-byte wire: codes
-     sorted, bits 24..41 run-coded so only lo24 crosses per entry)
-     vs the equivalent delta-u16 plane — the achievable wire cut;
+  1. phase decomposition of the ordered finalize (PhaseTimers:
+     global_sort / slice / d2h_start / d2h / counts) — how much of it
+     is the wire;
+  2. raw-transfer A/B at the live size N: one u32 plane (the lo wire)
+     vs three u8 byte planes (the 3-byte wire: codes sorted, bits
+     24..41 run-coded so only lo24 crosses per entry) vs the
+     equivalent delta-u16 plane — the achievable wire cut;
   3. device-side cost of producing the byte planes + the 18-bit run
      boundaries (elementwise shifts + one boundary scan).
 
-Decision rule (VERDICT item 3): land a new wire only if the measured
-end-to-end merge-time cut is >= 20%; otherwise record the numbers and
-close.
-
-Run on the real chip:  python -m bench.probe_finalize_wire
+Run on the GPU:  python -m bench.probe_finalize_wire
 """
 
 from __future__ import annotations
@@ -30,15 +23,9 @@ import time
 
 import numpy as np
 
-from bench.steps import _sync, setup_jax
+import jax
 
-
-def health(jax):
-    x = jax.device_put(np.ones((1, 1 << 20), np.uint32))
-    x.block_until_ready()
-    t0 = time.perf_counter()
-    _ = np.asarray(x)
-    return round(time.perf_counter() - t0, 3)
+from bench.steps import setup_jax
 
 
 def build_store(jax, k=21, batch_rows=512, chunk_len=65536, steps=3):
@@ -68,7 +55,7 @@ def build_store(jax, k=21, batch_rows=512, chunk_len=65536, steps=3):
     for _ in range(steps):
         state = counter.step(state, rows)
     state = counter.compact(state)
-    _sync(state.store[-1])
+    jax.block_until_ready(state.store[-1])
     return counter, state
 
 
@@ -76,7 +63,6 @@ def main():
     import jax.numpy as jnp
 
     jax = setup_jax()
-    print(json.dumps({"probe": "health_pre", "s": health(jax)}), flush=True)
 
     from findkmer_tpu.utils.prof import PhaseTimers
 
@@ -140,15 +126,13 @@ def main():
         return b0, b1, b2, n_runs
 
     r = to_wire(hi16, lo32)
-    _sync(r[0][:8])
+    jax.block_until_ready(r[0][:8])
     t0 = time.perf_counter()
     r = to_wire(hi16, lo32)
-    _sync(r[0][:8])
+    jax.block_until_ready(r[0][:8])
     t_xform = time.perf_counter() - t0
     print(json.dumps({"probe": "wire_transform_s",
                       "value": round(t_xform, 3)}), flush=True)
-    print(json.dumps({"probe": "health_post", "s": health(jax)}),
-          flush=True)
 
 
 if __name__ == "__main__":

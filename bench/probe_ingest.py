@@ -1,12 +1,7 @@
-"""Round-4 probe: decompose the k=21 sparse INGEST cost (VERDICT
-round-3 item 6 groundwork).
+"""Probe: decompose the k=21 sparse INGEST cost.
 
-RESULTS.md round 3 decomposed the sparse step into ingest ~0.79 ns/base
-+ compaction ~1.13 ns/base.  The extraction ALU is ~17 uint32 VPU ops
-per window (~0.02 ns/base at VPU rates) and the append writes 6 B/window
-(~0.008 ns/base at HBM rates), so 0.79 ns/base is ~25x off the analytic
-floor — this probe finds where it actually goes before any Pallas
-fused-ingest kernel is attempted:
+Times each piece of the sparse step's ingest against its analytic floor
+(the extraction ALU and a 6 B/window append):
 
   step        counter.step end-to-end (no compaction in window)
   ingest      the production _ingest jit (extract+append, donated)
@@ -16,7 +11,7 @@ fused-ingest kernel is attempted:
   append      _append of pre-extracted parts (pure dynamic_update_slice
               into the donated 1.6 GB raw buffers)
 
-Run (real chip): python -m bench.probe_ingest
+Run on the GPU: python -m bench.probe_ingest
 """
 
 from __future__ import annotations
@@ -27,20 +22,14 @@ import time
 
 import numpy as np
 
-from bench.steps import setup_jax, _sync
+import jax
+
+from bench.steps import setup_jax
 
 
 def main():
     jax = setup_jax()
     import jax.numpy as jnp
-
-    x = jax.device_put(np.ones((1, 1 << 20), np.uint32))
-    x.block_until_ready()
-    t0 = time.perf_counter()
-    _ = np.asarray(x)
-    print(json.dumps({"probe": "health_d2h_4mb_s",
-                      "value": round(time.perf_counter() - t0, 3)}))
-    sys.stdout.flush()
 
     from findkmer_tpu.config import Config
     from findkmer_tpu.models.counter import (
@@ -82,12 +71,12 @@ def main():
     REPS = 6
     state = counter.init_state()
     state = counter.step(state, rows)          # compile + warm
-    _sync(state.raw[-1][:4096])
+    jax.block_until_ready(state.raw[-1][:4096])
     state = counter.init_state()
     t0 = time.perf_counter()
     for _ in range(REPS):
         state = counter.step(state, rows)
-    _sync(state.raw[-1][:4096])
+    jax.block_until_ready(state.raw[-1][:4096])
     report("step", time.perf_counter() - t0, REPS)
     n_slots = state.fill // REPS
     del state
@@ -100,20 +89,20 @@ def main():
         jnp.full((cap,), sparse_ops.sent_of(dt), dt) for dt in dts
     )
     bufs = _ingest(bufs, rows, jnp.int32(0), k, False, R)  # warm
-    _sync(bufs[-1][:4096])
+    jax.block_until_ready(bufs[-1][:4096])
     t0 = time.perf_counter()
     for i in range(REPS):
         bufs = _ingest(bufs, rows, jnp.int32(i * n_slots), k, False, R)
-    _sync(bufs[-1][:4096])
+    jax.block_until_ready(bufs[-1][:4096])
     report("ingest", time.perf_counter() - t0, REPS)
 
     # --- 3. extraction alone (incl. 16-stream stack + flatten) ---
     parts = _batch_codes(rows, k, False, R)
-    _sync(parts[-1][:4096])
+    jax.block_until_ready(parts[-1][:4096])
     t0 = time.perf_counter()
     for _ in range(REPS):
         parts = _batch_codes(rows, k, False, R)
-    _sync(parts[-1][:4096])
+    jax.block_until_ready(parts[-1][:4096])
     report("codes", time.perf_counter() - t0, REPS)
 
     # --- 4. extraction fused into a reduce: ALU + input-read bound ---
@@ -137,11 +126,11 @@ def main():
     # --- 5. append of pre-extracted parts (pure d_u_s write) ---
     parts = tuple(jnp.asarray(p) for p in parts)
     bufs = _append(bufs, parts, jnp.int32(0))  # warm
-    _sync(bufs[-1][:4096])
+    jax.block_until_ready(bufs[-1][:4096])
     t0 = time.perf_counter()
     for i in range(REPS):
         bufs = _append(bufs, parts, jnp.int32(i * n_slots))
-    _sync(bufs[-1][:4096])
+    jax.block_until_ready(bufs[-1][:4096])
     report("append", time.perf_counter() - t0, REPS)
 
 

@@ -1,18 +1,17 @@
-"""Round-4 probe: gather vs segmented-scan rle_val on the real chip.
+"""Probe: gather vs segmented-scan rle_val.
 
-bench/probe_rowsort2.py found compact_counted_2d at 33-42 Melem/s vs
-compact_raw_2d at 817-1747 — a ~25x gap whose only structural
-difference is rle_val's take_along_axis gather (plus the 3rd sort
-operand).  ops/sparse.seg_totals replaces the gather with a
-hand-unrolled Hillis-Steele affine scan (log2(C) shift levels).  This
-probe times, at ~100M slots:
+The store-carrying compaction (compact_counted_2d) differs from the raw
+one structurally only in rle_val's run-total propagation (plus the 3rd
+sort operand).  ops/sparse.seg_totals computes it with a hand-unrolled
+Hillis-Steele affine scan (log2(C) shift levels) instead of a
+take_along_axis gather.  This probe times, at ~100M slots:
 
   sort3op          sort (hi, lo, cnt) num_keys=2 alone (the floor)
   counted_scan     production compact_counted_2d (scan rle_val)
-  counted_gather   the round-3 gather formulation, inlined
+  counted_gather   the gather formulation, inlined
   global_scan      global_compact_wide (flat, 27 scan levels)
 
-Run (real chip): python -m bench.probe_rle
+Run on the GPU: python -m bench.probe_rle
 """
 
 from __future__ import annotations
@@ -23,7 +22,9 @@ import time
 
 import numpy as np
 
-from bench.steps import setup_jax, _sync
+import jax
+
+from bench.steps import setup_jax
 
 
 def main():
@@ -31,13 +32,6 @@ def main():
     import jax.numpy as jnp
     from jax import lax
 
-    x = jax.device_put(np.ones((1, 1 << 20), np.uint32))
-    x.block_until_ready()
-    t0 = time.perf_counter()
-    _ = np.asarray(x)
-    print(json.dumps({"probe": "health_d2h_4mb_s",
-                      "value": round(time.perf_counter() - t0, 3)}))
-    sys.stdout.flush()
 
     from findkmer_tpu.ops import sparse as sparse_ops
 
@@ -53,11 +47,11 @@ def main():
 
     def timed(name, fn, args, reps=3):
         out = fn(*args)
-        _sync(out[0][:1, :4096] if out[0].ndim == 2 else out[0][:4096])
+        jax.block_until_ready(out[0][:1, :4096] if out[0].ndim == 2 else out[0][:4096])
         t0 = time.perf_counter()
         for _ in range(reps):
             out = fn(*args)
-        _sync(out[0][:1, :4096] if out[0].ndim == 2 else out[0][:4096])
+        jax.block_until_ready(out[0][:1, :4096] if out[0].ndim == 2 else out[0][:4096])
         dt = (time.perf_counter() - t0) / reps
         print(json.dumps({
             "probe": name, "ms": round(dt * 1e3, 1),

@@ -1,14 +1,11 @@
-"""Round-3 probe: STORE_ROWS geometry sweep for the k=21 sort slot.
+"""Probe: STORE_ROWS geometry sweep for the k=21 sort slot.
 
 The sparse store's compaction sort is row-wise ((G, C) arrays,
-dimension=1, G = counter.STORE_ROWS = 64) because batched row sorts
-measure faster than one flat sort on this chip.  64x256K measured 617
-Melem/s (bench/probe_hisort.py) but no other geometry was probed —
-this sweeps G at fixed totals to see whether the production G=64 sits
-at the optimum, at production-shaped sizes (a chr-scale compaction
-sorts ~50M slots).
+dimension=1).  This sweeps G at fixed totals, at production-shaped
+sizes (a chr-scale compaction sorts ~50M slots), to see where the
+optimum sits.
 
-Run on the real chip:  python -m bench.probe_rowsort
+Run on the GPU:  python -m bench.probe_rowsort
 """
 
 from __future__ import annotations
@@ -17,7 +14,9 @@ import json
 import sys
 import time
 
-from bench.steps import _sync, setup_jax
+import jax
+
+from bench.steps import setup_jax
 
 
 def main():
@@ -28,13 +27,6 @@ def main():
 
     dev = jax.devices()[0]
 
-    x = jax.device_put(np.ones((1, 1 << 20), np.uint32))
-    x.block_until_ready()
-    t0 = time.perf_counter()
-    _ = np.asarray(x)
-    print(json.dumps({"probe": "health_d2h_4mb_s",
-                      "value": time.perf_counter() - t0}))
-    sys.stdout.flush()
 
     @jax.jit
     def sort2_rows(a, b):
@@ -57,12 +49,12 @@ def main():
             h = jax.device_put(jnp.asarray(hi_all.reshape(G, -1)), dev)
             l = jax.device_put(jnp.asarray(lo_all.reshape(G, -1)), dev)
             out = sort2_rows(h, l)
-            _sync(out[0][:1, :1])  # compile + warm
+            jax.block_until_ready(out[0][:1, :1])  # compile + warm
             reps = 3
             t0 = time.perf_counter()
             for _ in range(reps):
                 out = sort2_rows(h, l)
-            _sync(out[0][:1, :1])
+            jax.block_until_ready(out[0][:1, :1])
             dt = (time.perf_counter() - t0) / reps
             eps = n / dt
             summary.append((eps, G, n))
@@ -75,11 +67,11 @@ def main():
             # per-row distinct): what production actually pays —
             # round 2 found the RLE erases the G=128/256 sort win
             out = sparse_ops.compact_raw_2d(h, l)
-            _sync(out[3][:1])
+            jax.block_until_ready(out[3][:1])
             t0 = time.perf_counter()
             for _ in range(reps):
                 out = sparse_ops.compact_raw_2d(h, l)
-            _sync(out[3][:1])
+            jax.block_until_ready(out[3][:1])
             dt = (time.perf_counter() - t0) / reps
             print(json.dumps({
                 "probe": f"compact_raw_2d u16 {G}x{n // G >> 10}K",

@@ -1,13 +1,11 @@
-"""Round-4 probe: re-sweep the store row-count G PAST the round-3 cap.
+"""Probe: sweep the store row-count G of the full compaction chain.
 
-bench/probe_sort3.py (healthy window) showed the round-3 "knee at
-G=8192" was a window artifact: 2-key row sort at 100M slots keeps
-climbing — G=4096 1053, 8192 1274, 16384 1565 Melem/s.  This sweeps
-the FULL compaction chain (sort + RLE: compact_raw_2d, and the
-store-carrying compact_counted_2d) at G up to 65536 to find the real
-knee, at chr-scale-shaped totals.
+Sweeps the FULL compaction chain (sort + RLE: compact_raw_2d, and the
+store-carrying compact_counted_2d) at G up to 65536, at chr-scale-shaped
+totals, to find the knee (ops/compaction.row_geometry's g_cap; ROADMAP
+S3/D5).
 
-Run (real chip): python -m bench.probe_rowsort2
+Run on the GPU: python -m bench.probe_rowsort2
 """
 
 from __future__ import annotations
@@ -18,20 +16,15 @@ import time
 
 import numpy as np
 
-from bench.steps import setup_jax, _sync
+import jax
+
+from bench.steps import setup_jax
 
 
 def main():
     jax = setup_jax()
     import jax.numpy as jnp
 
-    x = jax.device_put(np.ones((1, 1 << 20), np.uint32))
-    x.block_until_ready()
-    t0 = time.perf_counter()
-    _ = np.asarray(x)
-    print(json.dumps({"probe": "health_d2h_4mb_s",
-                      "value": round(time.perf_counter() - t0, 3)}))
-    sys.stdout.flush()
 
     from findkmer_tpu.ops import sparse as sparse_ops
 
@@ -43,11 +36,11 @@ def main():
 
     def timed(name, fn, args, reps=3):
         out = fn(*args)
-        _sync(out[0][:1, :4096])
+        jax.block_until_ready(out[0][:1, :4096])
         t0 = time.perf_counter()
         for _ in range(reps):
             out = fn(*args)
-        _sync(out[0][:1, :4096])
+        jax.block_until_ready(out[0][:1, :4096])
         dt = (time.perf_counter() - t0) / reps
         print(json.dumps({
             "probe": name, "ms": round(dt * 1e3, 1),

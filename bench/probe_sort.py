@@ -1,8 +1,7 @@
-"""Primitive probes for the sparse-path redesign (round 2).
+"""Primitive probes for the sparse-path design.
 
-Measures, on the real device, the building blocks a sorted-run (LSM)
-sparse store can be made of, so the design follows measured truth
-(CLAUDE.md: this environment punishes assumptions):
+Measures, on the device, the building blocks a sorted-run (LSM)
+sparse store can be made of, so the design follows measurement:
 
   * lax.sort in every relevant configuration (key count, payload count,
     stability, batched independent rows)
@@ -24,17 +23,19 @@ import sys
 import time
 from functools import partial
 
-from bench.steps import setup_jax, _sync
+import jax
+
+from bench.steps import setup_jax
 
 
 def _time(fn, args, reps, sync_arr_of):
     """Wall time of reps calls of jitted fn; serialize on D2H reduction."""
     out = fn(*args)
-    _sync(sync_arr_of(out))  # compile + warm
+    jax.block_until_ready(sync_arr_of(out))  # compile + warm
     t0 = time.perf_counter()
     for _ in range(reps):
         out = fn(*args)
-    _sync(sync_arr_of(out))
+    jax.block_until_ready(sync_arr_of(out))
     return (time.perf_counter() - t0) / reps
 
 

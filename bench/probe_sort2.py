@@ -1,9 +1,6 @@
-"""Round-2 follow-up probes: the candidate compaction chains end to end.
+"""Probes: the candidate compaction chains end to end.
 
-Probe 1 established (probe_sort.py): unstable sorts are fast (sort2 8M =
-359 Melem/s, 16M = 398), scans are nearly free (697 Melem/s), gathers and
-hand-built bitonic merges are slow (124 / 70 Melem/s).  This probe times
-the composed chains the new sparse engine would actually run:
+Times the composed chains the sparse engine can run:
 
   * sort2 with a narrow (u16) hi key (k <= 23 wide codes)
   * positional RLE (iota cummax, no gather) after sort2
@@ -21,16 +18,18 @@ import json
 import sys
 import time
 
-from bench.steps import setup_jax, _sync
+import jax
+
+from bench.steps import setup_jax
 
 
 def _time(fn, args, reps, sync_arr_of):
     out = fn(*args)
-    _sync(sync_arr_of(out))
+    jax.block_until_ready(sync_arr_of(out))
     t0 = time.perf_counter()
     for _ in range(reps):
         out = fn(*args)
-    _sync(sync_arr_of(out))
+    jax.block_until_ready(sync_arr_of(out))
     return (time.perf_counter() - t0) / reps
 
 

@@ -1,11 +1,7 @@
-"""Round-4 probe: can the k=21 compaction SORT get cheaper?
+"""Probe: can the k=21 compaction SORT get cheaper?
 
-bench/probe_ingest.py measured ingest at 0.22 ns/base (not round-3's
-0.79 — that figure was window/overhead-tainted), so the compaction sort
-(~1.1-1.3 ns/base, bench/probe_rowsort.py 884 Melem/s full chain) is
-now ~85% of the k=21 step.  This probe measures, at production row
-geometry (G=4096, chr-scale-shaped totals), what the sort costs under
-different key layouts to find the feasible gain:
+Measures, at production row geometry (G=4096, chr-scale-shaped totals),
+what the sort costs under different key layouts (ROADMAP S3):
 
   sort2_u16u32   current production: 2-key (u16 hi, u32 lo)   6 B/elem
   sort1_u32      single-key u32 (comparator floor, 4 B)
@@ -15,7 +11,7 @@ different key layouts to find the feasible gain:
                  (what landing u64 would actually run)
   g_sweep        2-key sort at G = 4096 / 8192 / 16384, same total
 
-Run (real chip): python -m bench.probe_sort3
+Run on the GPU: python -m bench.probe_sort3
 """
 
 from __future__ import annotations
@@ -26,7 +22,9 @@ import time
 
 import numpy as np
 
-from bench.steps import setup_jax, _sync
+import jax
+
+from bench.steps import setup_jax
 
 
 def main():
@@ -35,13 +33,6 @@ def main():
     import jax.numpy as jnp
     from jax import lax
 
-    x = jax.device_put(np.ones((1, 1 << 20), np.uint32))
-    x.block_until_ready()
-    t0 = time.perf_counter()
-    _ = np.asarray(x)
-    print(json.dumps({"probe": "health_d2h_4mb_s",
-                      "value": round(time.perf_counter() - t0, 3)}))
-    sys.stdout.flush()
 
     rng = np.random.default_rng(0)
     G, C = 4096, 24576            # ~100M slots: one chr-scale compaction
@@ -54,11 +45,11 @@ def main():
 
     def timed(name, fn, args, reps=3, n=N):
         out = fn(*args)
-        _sync(out[0][:1, :4096] if out[0].ndim == 2 else out[0][:4096])
+        jax.block_until_ready(out[0][:1, :4096] if out[0].ndim == 2 else out[0][:4096])
         t0 = time.perf_counter()
         for _ in range(reps):
             out = fn(*args)
-        _sync(out[0][:1, :4096] if out[0].ndim == 2 else out[0][:4096])
+        jax.block_until_ready(out[0][:1, :4096] if out[0].ndim == 2 else out[0][:4096])
         dt = (time.perf_counter() - t0) / reps
         print(json.dumps({
             "probe": name, "ms": round(dt * 1e3, 1),

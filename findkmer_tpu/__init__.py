@@ -1,16 +1,16 @@
-"""findkmer-tpu: a TPU-native exact k-mer counting engine.
+"""findkmer-tpu: an exact k-mer counting engine on JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference tool soundude462/findKmer (see SURVEY.md for the reference
 analysis).  The reference is a single-threaded C scanning loop; this
 framework replaces it with:
 
   * host-side vectorized FASTA parsing + 2-bit encoding (io/),
   * device-side rolling-window k-mer extraction and count accumulation
-    (ops/, ops/pallas/),
+    (ops/),
   * device-resident count tables, direct-addressed or sparse (table.py),
-  * data-parallel + table-sharded distribution over a TPU mesh with XLA
-    collectives (parallel/),
+  * data-parallel + table-sharded distribution over a device mesh with
+    XLA collectives (parallel/),
   * a streaming, checkpointable pipeline (pipeline.py) and CLI (cli.py).
 
 Correctness bar: bit-exact spectra versus the scalar oracle in oracle/

@@ -123,7 +123,7 @@ def count(
     """Count k-mers in FASTA file(s); returns a Spectrum.
 
     Extra keyword arguments become Config fields (e.g. chunk_len=...,
-    table_mode="sparse", hist="pallas").  canonical=None (default)
+    table_mode="sparse", hist="onehot").  canonical=None (default)
     keeps config's setting — passing config=Config(canonical=True)
     used to be silently clobbered by this keyword's old False default.
     """
@@ -245,8 +245,8 @@ def filter_reads(
     Single-end: inputs = path or list of paths, output = one path.
     Paired (paired=True): inputs = (R1, R2), output = (OUT1, OUT2);
     pairs are kept/dropped together (pair_mode "any" or "both").
-    engine: "host" (OpenMP C scan) / "device" (TPU sort-merge probe) /
-    "auto".  Returns (reads_or_pairs_kept, seen)."""
+    engine: "host" (OpenMP C scan) / "device" (sort-merge probe on the
+    accelerator) / "auto".  Returns (reads_or_pairs_kept, seen)."""
     from findkmer_tpu.cli import _open_out  # gz-by-extension, like the CLI
     from findkmer_tpu.filter import (FilterSpec, filter_file,
                                      filter_file_paired)

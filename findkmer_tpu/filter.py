@@ -10,7 +10,8 @@ Two interchangeable scoring engines (filter_file `engine=`):
   * host — vectorized numpy / OpenMP C scan (src/native/encode.c
     fk_filter_hits): codes by rolling shift-or, one-probe bit-table
     prefilter, exact searchsorted on survivors.
-  * device — TPU sort-merge membership probe (filter_device.py): the
+  * device — sort-merge membership probe on the accelerator
+    (filter_device.py): the
     counting engine's packed wire + window extraction, one unstable
     sort of [spectrum | windows] per batch.  `auto` picks it on a real
     accelerator.
@@ -57,9 +58,9 @@ def _cumsum01(flags: np.ndarray) -> np.ndarray:
     """[0, cumsum(flags)] with the narrowest safe dtype, one buffer.
 
     flags is 0/1 per window; per-flush window counts are ~16.7M, so an
-    int32 prefix sum halves the freshly-faulted bytes vs int64 — this
-    VM faults fresh pages at ~0.02 GB/s (CLAUDE.md gotcha #5), which
-    made the old concatenate+int64 pattern the filter's hot loop."""
+    int32 prefix sum halves the freshly-faulted bytes vs int64 — on a
+    lazily-backed VM that faults fresh pages at ~0.02 GB/s (ROADMAP
+    D10) the old concatenate+int64 pattern was the filter's hot loop."""
     dt = np.int32 if flags.size < 2**31 - 1 else np.int64
     out = np.empty(flags.size + 1, dt)
     out[0] = 0
@@ -435,12 +436,10 @@ def _resolve_engine(engine: str) -> str:
     """auto -> the native host C scan when built, device only as the
     accelerator-backed fallback, numpy host otherwise.
 
-    Round-4 measurement (bench/RESULTS.md "offsets-based zero-copy
-    flow"): with the offsets flow the OpenMP binary-search scan runs
-    1312 kreads/s keep-few on 4 cores vs the device engine's 376
-    end-to-end — the host scan now wins even against a real
-    accelerator, and it scales with host cores while the device path
-    pays H2D per read.  The device engine stays as the `auto` pick
+    With the offsets flow the OpenMP binary-search scan beat the device
+    engine end to end on the previous accelerator, and it scales with
+    host cores while the device path pays H2D per read; the comparison
+    on the H100 is ROADMAP S8.  The device engine stays as the `auto` pick
     when the C library is unavailable (the numpy fallback scorer is
     the slowest path) and as an explicit `--engine device` choice."""
     if engine != "auto":
@@ -596,9 +595,8 @@ def _filter_fastq_offsets(
     the C record scanner (_fastq_blocks) produces per-block offset
     arrays, reads are scored IN PLACE in the block buffer
     (_scored_segments), and kept records are emitted as coalesced block
-    spans.  No per-read Python objects anywhere — the ~1.1 s / 50 Mbase
-    parse+emit residual of the list-based flow (bench/RESULTS.md
-    round 3) collapses to the per-block calls."""
+    spans.  No per-read Python objects anywhere — the parse+emit
+    residual of the list-based flow collapses to the per-block calls."""
     kept = seen = 0
     for h, w, data, rs, re_ in _scored_segments(path, spec, engine):
         seen += int(h.size)
@@ -680,8 +678,8 @@ def filter_file(
     hits/valid_windows >= min_frac); --invert keeps the complement.
     Reads are scored in multi-MB batches (FilterSpec.hits_batch) so the
     per-read Python cost is one list append, not a numpy pipeline.
-    engine: "host" (OpenMP C scan / numpy), "device" (TPU sort-merge
-    membership, filter_device.py), or "auto" (the native host scan
+    engine: "host" (OpenMP C scan / numpy), "device" (sort-merge
+    membership on the accelerator, filter_device.py), or "auto" (the native host scan
     when built, else device on a real accelerator — _resolve_engine).
     Both engines are bit-for-bit interchangeable.
     Returns (reads kept, reads seen).
@@ -750,8 +748,8 @@ def filter_file(
             return
         if depth:
             # dispatch this flush's device work and KEEP READING: its
-            # ~150 ms D2H + attribution happen while the device sorts
-            # the next flush (bench/RESULTS.md round 3 phase profile)
+            # D2H + attribution happen while the device sorts the next
+            # flush
             pending.append((scorer.begin(batch_seqs), batch_raws))
             batch_seqs, batch_raws = [], []  # moved into pending
             while len(pending) > depth:

@@ -1,6 +1,6 @@
 """Vectorized byte -> 2-bit base encoding with validity masking.
 
-This is the TPU-native replacement for the reference's byte-at-a-time
+This is the replacement for the reference's byte-at-a-time
 char->base mapping inside its C scan loop (SURVEY.md §2.1 R3: uppercase-fold,
 map A/C/G/T -> 0..3, anything else resets the window).  Instead of a branchy
 per-byte loop, a 256-entry lookup table maps the whole buffer in one numpy

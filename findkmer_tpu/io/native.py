@@ -1,9 +1,10 @@
 """ctypes loader for the native C encoder (src/native/encode.c).
 
 The native library is optional: if the shared object has not been built (or
-fails to load on this platform), io/encode.py silently falls back to the
-numpy LUT path.  Build with `make -C src/native` or `python -m
-findkmer_tpu.io.native` (auto-builds with cc if available).
+fails to load on this platform), io/encode.py falls back to the numpy LUT
+path, and load_error() says why.  It is built on first use with
+`cc -fopenmp`, or by hand with `make -C src/native [CC=...]` or `python -m
+findkmer_tpu.io.native`.
 """
 
 from __future__ import annotations
@@ -24,6 +25,11 @@ _LIB_NAME = "libfindkmer_encode.so"
 
 _lib: Optional[ctypes.CDLL] = None
 _load_attempted = False
+_error = ""  # why the library is not loaded; see load_error()
+# The system compiler, not $CC: the build needs OpenMP, and an
+# environment's CC can name a toolchain without its runtime (a gcc with
+# no libgomp.spec), while the system cc has it.
+_CC = "cc"
 
 
 def _lib_path() -> Path:
@@ -36,52 +42,65 @@ def _lib_path() -> Path:
 
 
 def build(quiet: bool = True) -> bool:
-    """Compile the shared library in-place.  Returns True on success."""
-    src = _SRC_DIR / "encode.c"
-    if not src.exists():
-        return False
+    """Compile the shared library in-place with cc and OpenMP.  Returns
+    True on success.  A failure (compiler error, missing
+    compiler, timeout) is kept for load_error() and, unless quiet, also
+    written to stderr."""
+    global _error
     out = _lib_path()
-    cc = os.environ.get("CC", "cc")
     cmd = [
-        cc, "-O3", "-march=native", "-std=c17", "-fPIC", "-fopenmp", "-shared",
-        "-o", str(out), str(src),
+        _CC, "-O3", "-march=native", "-std=c17",
+        "-fPIC", "-fopenmp", "-shared", "-o", str(out),
+        str(_SRC_DIR / "encode.c"),
     ]
     try:
         res = subprocess.run(
             cmd, capture_output=True, timeout=120, cwd=str(_SRC_DIR)
         )
-        if res.returncode != 0:
-            if not quiet:
-                sys.stderr.write(res.stderr.decode("utf-8", "replace"))
-            return False
-        return out.exists()
-    except Exception:
-        return False
+    except (OSError, subprocess.SubprocessError) as e:
+        _error = f"{' '.join(cmd)}: {e}"
+    else:
+        if res.returncode == 0 and out.exists():
+            return True
+        _error = (f"{' '.join(cmd)}: exit {res.returncode}\n"
+                  + res.stderr.decode("utf-8", "replace"))
+    if not quiet:
+        sys.stderr.write(_error + "\n")
+    return False
+
+
+def load_error() -> str:
+    """Why the library is not loaded ("" when it is, or before the first
+    load attempt)."""
+    return _error
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _load_attempted
+    global _lib, _load_attempted, _error
     if _load_attempted:
         return _lib
     _load_attempted = True
     autobuild = os.environ.get("FINDKMER_AUTOBUILD", "1") == "1"
     path = _lib_path()
     if not path.exists() and autobuild:
-        build(quiet=True)
+        build()
     if not path.exists():
+        _error = _error or f"{path} is not built (FINDKMER_AUTOBUILD=0)"
         return None
     try:
         _lib = _register(path)
-    except OSError:
-        _lib = None
-    except AttributeError:
+    except OSError as e:
+        _error = f"{path}: {e}"
+    except AttributeError as e:
         # stale .so predating a newer symbol: rebuild once and retry
-        _lib = None
-        if autobuild and build(quiet=True):
+        _error = f"{path}: {e}"
+        if autobuild and build():
             try:
                 _lib = _register(_lib_path())
-            except (OSError, AttributeError):
-                _lib = None
+            except (OSError, AttributeError) as e2:
+                _error = f"{path} after a rebuild: {e2}"
+    if _lib is not None:
+        _error = ""
     return _lib
 
 
@@ -297,8 +316,8 @@ def format_spectrum(codes: np.ndarray, counts: np.ndarray, k: int,
     Returns a uint8 numpy view (NOT bytes): the buffer stays on the
     shared-memory numpy allocator, and file.write()/bytes.join()
     accept it directly — a .tobytes() here would copy GBs through
-    PRIVATE anonymous memory, which this VM faults at ~17 MB/s
-    (bench/RESULTS.md "host page-fault pathology")."""
+    PRIVATE anonymous memory, which a lazily-backed VM faults at
+    ~17 MB/s (measured on the previous host VM; ROADMAP D10)."""
     lib = _load()
     assert lib is not None, "native encoder not available"
     assert len(sep) == 1, "native formatter supports 1-byte separators"
@@ -322,8 +341,7 @@ def merge_runs(runs):
     `runs` is a list of (codes, counts) pairs, each sorted ascending by
     code with no duplicates within a run.  One heap-merge C pass — the
     host-side tail of the row-compacted sparse store (the device leaves
-    G independent sorted rows because row-wise sorts measure 1.2x the
-    flat sort; bench/RESULTS.md round 2)."""
+    G independent sorted rows; ops/compaction.row_geometry)."""
     lib = _load()
     assert lib is not None, "native encoder not available"
     runs = [

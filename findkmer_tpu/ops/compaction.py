@@ -5,9 +5,9 @@ folded into a (G, cols) row store) and the dp_sparse distributed engine
 (parallel/dist.py: (n_dev, cap) raw buffers folded into (n_dev*sub, L)
 per-device sub-row stores) run the SAME compaction chain — row-wise
 unstable sort + scan-RLE (ops/sparse.py), squeeze-to-live-ladder, and
-on-demand cross-row dedup.  Round 3 kept two near-copies of every step
-and a correctness fix had to land in both (VERDICT round-3 weak #3);
-this module is the single parameterized implementation both import.
+on-demand cross-row dedup.  This module is the single parameterized
+implementation both import (two near-copies once needed every
+correctness fix twice).
 
 Parameterization: every helper takes the TOTAL row count G of the store
 (single-chip: the counter's geometry rows; distributed: n_dev * sub) and
@@ -17,9 +17,8 @@ row-major, so a sharded (n_dev, cap) buffer reshapes locally on each
 device with zero cross-device movement.
 
 Replaces (identically) the reference's count-structure insert/traverse
-(SURVEY.md §2.1 R4) for large k; design rationale and the measured
-geometry economics live in the ops/sparse.py module docstring and
-bench/RESULTS.md.
+(SURVEY.md §2.1 R4) for large k; design rationale lives in the
+ops/sparse.py module docstring.
 """
 
 from __future__ import annotations
@@ -37,22 +36,17 @@ from findkmer_tpu.ops import sparse as sparse_ops
 def row_geometry(cap0: int, g0: int = 1, g_cap: int = 262144) -> int:
     """Row count of a sorted store over raw capacity cap0.
 
-    More rows = shorter rows = fewer bitonic sort stages.  Round 3
-    measured 536 -> 885 Melem/s from G=64 to G=4096 at 48M slots and
-    called 4096 the knee; the round-4 healthy-window re-sweep
-    (bench/probe_rowsort2.py) showed that knee was a window
-    artifact — the full chain climbs: compact_raw 817 / 1175 / 1457 /
-    1725 / 1965 / 2304 Melem/s and compact_counted (segmented-scan RLE)
-    760 / 887 / 1115 / 1359 / 1647 at G = 4096 / 16384 / 32768 / 65536
-    / 131072 / 262144 over 100M slots, with the raw knee at 262144
-    (524288 measured DOWN, 2200).  g_cap is therefore 262144; the
-    cap0/128 guard below keeps test-scale stores at small G.  The result is a
+    More rows = shorter rows = fewer bitonic sort stages.  g_cap =
+    262144 was tuned on the previous accelerator's bitonic sort and is
+    not yet measured on the H100, whose sorts are radix sorts (ROADMAP
+    S3/D5, bench/probe_rowsort2.py).  The cap0/128 guard below keeps
+    test-scale stores at small G.  The result is a
     power of two that divides cap0 and every larger ladder capacity
     (buffers only grow; rows never change), kept <= cap0/128 so each
     row retains >= 128 raw slots for the per-row RLE.
 
     g0 is the caller's floor: the single-chip store starts at its
-    round-2 STORE_ROWS=64 (also the per-pass cap of the C heap merge),
+    STORE_ROWS=64 (also the per-pass cap of the C heap merge),
     the dp_sparse per-device SUB-row count starts at 1."""
     g = g0
     while g < g_cap and g * 256 <= cap0:

@@ -1,9 +1,9 @@
 """Rolling-window k-mer code extraction (XLA path).
 
-TPU-native replacement for the reference findKmer's scan-loop inner
-iteration (SURVEY.md §3.1 E2: `code = ((code << 2) | base) & mask` with a
+Replacement for the reference findKmer's scan-loop inner iteration
+(SURVEY.md §3.1 E2: `code = ((code << 2) | base) & mask` with a
 validity run reset on non-ACGT bytes).  The branchy per-byte loop becomes k
-static shifted slices OR'd together on the VPU — fully vectorized, no
+static shifted slices OR'd together — fully vectorized, no
 data-dependent control flow, jit-compiled once per (B, R) shape.
 
 Input layout (set up by pipeline.py):
@@ -148,9 +148,8 @@ def unpack_rows(
 def _be_words32(b: jnp.ndarray, pad_words: int) -> jnp.ndarray:
     """(B, NB) uint8 -> (B, NW+pad) big-endian uint32 words.
 
-    bitcast (little-endian) + elementwise byteswap: strided byte slices
-    (b[:, 0::4]) lower to relayouts on TPU and measured 2x slower than
-    this lane-aligned form."""
+    bitcast (little-endian) + elementwise byteswap instead of strided
+    byte slices (b[:, 0::4])."""
     B, NB = b.shape
     padb = (-NB) % 4 + 4 * pad_words
     if padb:
@@ -209,8 +208,7 @@ def window_codes_packed(
     32-bit word holds 16 bases and the code of the window starting at
     base p = 16w + r is two shifted combines of words w, w+1, w+2 at a
     CONSTANT shift 2r — 16 residue streams replace the k-slice OR chain
-    of window_codes (~1 op/window vs ~4k; decisive for the sparse path,
-    bench/RESULTS.md round 2).  Validity rides the same scheme on
+    of window_codes (~1 op/window vs ~4k).  Validity rides the same scheme on
     16-bit halfwords of the validity bitstream.
 
     Returns FLAT SENT-masked arrays in residue-interleaved order —
@@ -223,8 +221,7 @@ def window_codes_packed(
     streams are truncated to ceil((R-k+1)/16) so the emitted slot count
     matches the row's window count to within 15 — without it the byte
     padding adds ~32 all-SENT slots/row, enough to push an exactly
-    pre-sized raw buffer over capacity and double the compaction sort
-    (measured 118 -> 171 Mbase/s at k=21; bench/RESULTS.md round 2).
+    pre-sized raw buffer over capacity and double the compaction sort.
     """
     assert 1 <= k <= 31
     SENT = jnp.uint32(0xFFFFFFFF)

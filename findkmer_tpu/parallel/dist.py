@@ -1,8 +1,8 @@
 """Distributed k-mer counting over a device mesh (SURVEY.md §2.2, §2.3 N6).
 
 The reference has zero parallelism (single C process); everything here is
-new, built the TPU way: `shard_map` over a 1-D mesh with XLA collectives —
-no NCCL/MPI anywhere.
+new: `shard_map` over a 1-D mesh with XLA collectives, which XLA hands
+to NCCL on GPUs — no MPI and no hand-written communication.
 
 Three table layouts / merge strategies:
 
@@ -13,7 +13,7 @@ Three table layouts / merge strategies:
   * Key-routed sharded table ("all_to_all"): the 4^k table is split into
     n_dev contiguous shards by code prefix; each device extracts codes from
     its rows, buckets them by owner shard, exchanges buckets with
-    lax.all_to_all over ICI, and scatter-adds what it receives into its own
+    lax.all_to_all, and scatter-adds what it receives into its own
     shard.  Structurally MoE token->expert dispatch (SURVEY.md §2.2 EP).
     Right for k=15 where a 4 GiB table cannot be replicated
     [BASELINE config 3].
@@ -69,9 +69,8 @@ def _sub_rows(cap0: int) -> int:
     per-compaction sort, so the per-device compaction runs at the
     measured-fast short-row geometry instead of one cap-length row.
     Starts at 1 (a device may own very little), power of two
-    <= cap0/128, capped at row_geometry's shared g_cap — the knee
-    measured on the single-chip chain (round 4: 262144), which is the
-    SAME sort+RLE program this engine runs per device shard."""
+    <= cap0/128, capped at row_geometry's shared g_cap (the SAME
+    sort+RLE program this engine runs per device shard)."""
     return compaction.row_geometry(cap0, g0=1)
 
 
@@ -92,7 +91,7 @@ def _host_merge_stores(store) -> Tuple[np.ndarray, np.ndarray]:
     partitions a sort over a sharded dimension into a pathological
     program (131 s for 8 x 1M rows on the CPU mesh vs <1 s here).
     Multi-HOST merging is a separate path (parallel/multihost.py
-    allgather_spectrum — one DCN collective)."""
+    allgather_spectrum — one collective)."""
     if len(store) == 2:
         lo, cnt = store
         return sparse_ops.store_to_host_2d(None, lo, cnt)
@@ -213,7 +212,7 @@ class DistributedCounter(RowStoreMixin):
         state_spec = P(AXIS, None)
         self._rows_sharding = NamedSharding(mesh, rows_leaf_spec)
         self._state_sharding = NamedSharding(mesh, state_spec)
-        method = cfg.hist if cfg.hist not in ("auto", "pallas") else "scatter"
+        method = hist_ops.resolve_method(cfg.hist, k)
 
         if self.merge in ("psum", "psum_scatter"):
 
@@ -400,14 +399,10 @@ class DistributedCounter(RowStoreMixin):
         cfg, n_dev = self.cfg, self.n_dev
         dtype = jnp.dtype(cfg.count_dtype)
         if self.merge in ("psum", "psum_scatter"):
-            return jax.device_put(
-                jnp.zeros((n_dev, cfg.table_size), dtype),
-                self._state_sharding,
-            )
+            return self._sharded_zeros((n_dev, cfg.table_size), dtype)
         if self.merge == "all_to_all":
-            shards = jax.device_put(
-                jnp.zeros((n_dev, self.table_size // n_dev), dtype),
-                self._state_sharding,
+            shards = self._sharded_zeros(
+                (n_dev, self.table_size // n_dev), dtype
             )
             return (shards, jnp.zeros((), bool))
         if self._spill_n:
@@ -421,6 +416,16 @@ class DistributedCounter(RowStoreMixin):
 
             spill.init_dir(self.cfg.spill_dir)  # refuses stale runs
         return DpSparseState(raw=self._fresh_raw(self._raw_cap0()))
+
+    def _sharded_zeros(self, shape, dtype):
+        """Zeros made on each device in place.  jnp.zeros + device_put
+        would build the whole array on the default device first (for the
+        4 GiB k=15 all_to_all table, card 0 of four H100s peaked at
+        8 GiB against 2 GiB on the others)."""
+        return jax.jit(
+            partial(jnp.zeros, shape, dtype),
+            out_shardings=self._state_sharding,
+        )()
 
     # --- dp_sparse helpers (mirror models/counter.py single-chip) -----
     def _raw_cap0(self) -> int:

@@ -4,8 +4,9 @@ The engine uses a single 1-D mesh axis "d" over all chips: every chip is
 both a data-parallel worker (counts its shard of rows) and — when the table
 is sharded — the owner of one table shard (the EP-like key-routed layout of
 SURVEY.md §2.2).  A separate 2-D (data, table) factorization buys nothing
-for this workload: routing is all-to-all over all chips either way, and one
-axis keeps collectives on ICI-friendly paths.
+for this workload: routing is all-to-all over all chips either way.  The
+cards of one host are joined all to all (NVLink), so the mesh needs no
+topology.
 """
 
 from __future__ import annotations

@@ -1,9 +1,15 @@
-"""Multi-host orchestration (SURVEY.md §2.2 communication backend, §3.2 F2).
+"""Multi-process orchestration (SURVEY.md §2.2 communication backend, §3.2 F2).
 
-TPU-native process-group story: one Python process per host,
-`jax.distributed.initialize()` over DCN for bootstrap, then every data-plane
-collective is an XLA op inside the jitted counting step riding ICI
-(parallel/dist.py).  No MPI/NCCL/Gloo anywhere.
+Process-group story: `jax.distributed.initialize()` bootstraps the group,
+then every data-plane collective is an XLA op inside the jitted counting
+step (parallel/dist.py), which XLA hands to NCCL on GPUs.
+
+One process per card: a JAX process reserves most of a card's memory when
+it first uses it, so two processes on one card fail.  A group whose
+coordinator is on the loopback address runs on one host, so process i
+takes local card i (`local_device_ids`).  A group across hosts launches
+each process with CUDA_VISIBLE_DEVICES (or JAX_LOCAL_DEVICE_IDS) naming
+its cards.
 
 Host-side input sharding: host h streams batches h, h+P, h+2P, ... of the
 deterministic global batch sequence (round-robin), so no coordination is
@@ -33,7 +39,8 @@ def initialize(
 
     Arguments default from the standard env vars
     (FINDKMER_COORDINATOR/NUM_PROCESSES/PROCESS_ID) so a launcher can
-    export instead of passing flags.
+    export instead of passing flags.  Card assignment: see
+    local_device_ids_for.
     """
     import jax
 
@@ -59,8 +66,27 @@ def initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=local_device_ids_for(
+                coordinator_address, process_id, os.environ
+            ),
         )
     return num_processes, process_id
+
+
+_LOOPBACK = ("localhost", "127.", "[::1]", "::1")
+
+
+def local_device_ids_for(coordinator_address: str, process_id: int,
+                         environ) -> Optional[list]:
+    """The local card a group process takes: [process_id] when the
+    coordinator is on the loopback address (every process is on this
+    host), else None.  A launcher's own choice (CUDA_VISIBLE_DEVICES or
+    JAX_LOCAL_DEVICE_IDS) always wins."""
+    if "CUDA_VISIBLE_DEVICES" in environ or "JAX_LOCAL_DEVICE_IDS" in environ:
+        return None
+    if coordinator_address.startswith(_LOOPBACK):
+        return [process_id]
+    return None
 
 
 def shard_batches_round_robin(
@@ -93,7 +119,7 @@ def group_active() -> bool:
 def allgather_spectrum(spectrum):
     """Collective finalize across a jax.distributed group: every host
     contributes its PARTIAL spectrum, every host returns with the FULL
-    merged one.  One allgather over DCN replaces the per-host-TSV +
+    merged one.  One allgather replaces the per-host-TSV +
     `findkmer merge` tail (round-1 verdict item 4; BASELINE metric 2).
 
     Dense partials (np (4^k,) arrays) sum; sparse partials

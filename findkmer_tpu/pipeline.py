@@ -85,8 +85,8 @@ class _BatchEmitter:
     array is freshly allocated per batch (it may alias into a
     still-in-flight device_put, so reuse would race the H2D DMA) but
     utils.malloc_tuning keeps glibc from munmapping freed big buffers, so
-    the pages stay warm — this VM faults fresh pages at ~0.02 GB/s
-    (bench/RESULTS.md) and per-batch mmap churn dominated the host
+    the pages stay warm — a lazily-backed VM faults fresh pages at
+    ~0.02 GB/s (measured on the previous host VM; ROADMAP D10) and per-batch mmap churn dominated the host
     pipeline before this.
     """
 
@@ -291,8 +291,7 @@ def _fastq_code_stream(
     arrays and fk_filter_gather_prepare LUT-encodes every read straight
     into one INVALID-prefilled code buffer, separators already in
     place — no per-read Python objects, no per-line loop.  Replaces the
-    ~51 Mbase/s FastqReader.chunks() parse that bounded FASTQ counting
-    end-to-end (bench/RESULTS.md round 4)."""
+    FastqReader.chunks() parse that bounded FASTQ counting end to end."""
     from findkmer_tpu.filter import _fastq_blocks
     from findkmer_tpu.io import native as native_mod
 

@@ -2,7 +2,7 @@
 failure-detection envelope).
 
 Counts synthetic DNA on THIS machine's backend (whatever jax resolves:
-TPU, CPU, a mesh with --devices) and diffs the spectra bit-exactly
+GPU, CPU, a mesh with --devices) and diffs the spectra bit-exactly
 against a self-contained scalar counter implemented right here — an
 independent byte-at-a-time walk, not the engine and not the test
 oracle, so a bad install, a miscompiling backend, or a broken native
@@ -78,7 +78,7 @@ def _make_input(rng) -> Tuple[str, list]:
 
 
 CASES = (
-    dict(k=4, canonical=False),    # dense table (pallas/scatter)
+    dict(k=4, canonical=False),    # dense table
     dict(k=13, canonical=False),   # narrow sparse (one u32 plane)
     dict(k=21, canonical=True),    # wide sparse + canonical fold
 )

@@ -115,8 +115,8 @@ def _parse_binary(path, k: int, sep_b: bytes):
     Returns None when the native library is missing or the input is
     exotic (unsorted, lowercase, blank lines) — callers fall back to the
     Python dict path.  read() into a numpy (shm-allocator) buffer rather
-    than mmap: file-backed mmap faults ride this VM's slow lazy path
-    (bench/RESULTS.md "host page-fault pathology")."""
+    than mmap: file-backed mmap faults ride a lazily-backed VM's slow
+    path (ROADMAP D10)."""
     import os
 
     import numpy as np

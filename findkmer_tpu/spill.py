@@ -10,7 +10,7 @@ streaming k-way block merge of every run plus the residual store, so
 host memory stays O(runs x block) no matter how many distinct k-mers
 the input holds.  This is the external-memory design of KMC/Gerbil
 (PAPERS.md landscape: sorted runs + merge), built on the same sorted
-artifacts the TPU path already produces.
+artifacts the device path already produces.
 
 Run files are plain .npy pairs (codes uint64, counts int64) written
 atomically (tmp + rename) and mmap-read at merge time, so block slicing

@@ -4,8 +4,8 @@ The reference's count structure is a single in-memory 4^k array or 4-ary
 trie (SURVEY.md §2.1 R4).  Here the table is a device-resident value with an
 explicit mode and sharding story (SURVEY.md §2.3 N5):
 
-  * DenseTable  — (4^k,) count vector in HBM (VMEM-sized for small k after
-    XLA fusion), direct-addressed by window code.  k <= 16 hard cap;
+  * DenseTable  — (4^k,) count vector in device memory, direct-addressed
+    by window code.  k <= 16 hard cap;
     Config.direct_k_max soft cap for auto mode.
   * SparseTable — sorted (hi, lo, count) runs of static capacity for big k
     (ops/sparse.py), exact, no hashing.

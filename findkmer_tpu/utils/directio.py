@@ -1,7 +1,6 @@
 """O_DIRECT spectrum writer for lazily-backed VMs.
 
-Measured on this machine class (bench/RESULTS.md "host page-fault
-pathology"): dirtying FRESH page-cache pages — what every first write
+Measured on the previous host VM (ROADMAP D10): dirtying FRESH page-cache pages — what every first write
 of a new output file does — runs at 13-72 MB/s because each new page
 faults through the hypervisor, while O_DIRECT writes that bypass the
 page cache run at ~128 MB/s and rewrites of warm pages at ~626 MB/s.

@@ -2,8 +2,8 @@
 
 The batch pipeline allocates multi-MB buffers per batch.  glibc serves
 those with mmap and munmaps them on free, so every batch refaults its
-pages — catastrophic on lazily-backed VMs (first-touch ~0.02 GB/s here;
-bench/RESULTS.md).  Raising M_MMAP_THRESHOLD makes malloc serve big
+pages — catastrophic on lazily-backed VMs (first-touch ~0.02 GB/s on the
+previous host VM; ROADMAP D10).  Raising M_MMAP_THRESHOLD makes malloc serve big
 buffers from the reusable heap, keeping pages warm across batches.
 
 Best-effort: silently does nothing on non-glibc platforms.

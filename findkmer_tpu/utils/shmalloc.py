@@ -2,8 +2,8 @@
 
 On this class of lazily-backed VM, PRIVATE anonymous pages (normal
 malloc/numpy memory) demand-fault through the hypervisor at ~17 MB/s
-while SHARED anonymous pages fault at ~1.5 GB/s (measured;
-bench/RESULTS.md round 2).  The C extension installs a numpy
+while SHARED anonymous pages fault at ~1.5 GB/s (measured on the
+previous host VM; ROADMAP D10).  The C extension installs a numpy
 PyDataMem handler that serves allocations >= 1 MiB from
 MAP_SHARED|MAP_ANONYMOUS mmaps (with a small pooled free-list), which
 covers every large host buffer in the engine — including the D2H

@@ -13,7 +13,7 @@ semantics as distilled into the behavior contract (SURVEY.md §0.1):
   * Optional canonical mode counts min(kmer, revcomp(kmer)) instead.
 
 Deliberately slow and simple — no bit tricks, no vectorization — so that it
-is obviously correct by inspection.  The TPU engine is diffed against this
+is obviously correct by inspection.  The engine is diffed against this
 on every test (tests/test_vs_oracle.py).
 
 Reference parity note: the upstream reference (soundude462/findKmer) could

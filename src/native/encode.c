@@ -1,10 +1,10 @@
 /* Native host-side encoder for findkmer-tpu.
  *
- * TPU-native equivalent of the reference findKmer's C byte scanner
+ * Host-side counterpart of the reference findKmer's C byte scanner
  * (SURVEY.md §2.1 R3): instead of a branchy fgetc loop feeding a count
  * structure, this translation unit only does the host-side part of the
  * job — byte -> 2-bit base code translation and validity masking at
- * memory bandwidth — and leaves window extraction + counting to the TPU
+ * memory bandwidth — and leaves window extraction + counting to the device
  * (ops/window.py, ops/histogram.py).
  *
  * Exposed via ctypes (findkmer_tpu/io/native.py); build with
@@ -333,11 +333,10 @@ size_t fk_count_valid(const uint8_t *restrict in, size_t n) {
 /* ------------------------------------------------------------------ */
 /* G-way merge of sorted (code, count) runs, summing counts of equal   */
 /* codes.  The device-side sparse store compacts into independent      */
-/* sorted rows (row-wise lax.sort measures 370 vs 307 Melem/s flat at  */
-/* 50M; bench/RESULTS.md round 2), so global order is restored here on */
-/* the host, fused into the D2H/output tail.  Runs are passed as       */
-/* per-run pointers — no concatenation copy (this VM faults fresh      */
-/* pages at ~0.02 GB/s, so every avoided buffer matters).  Output      */
+/* sorted rows (ops/compaction.row_geometry), so global order is       */
+/* restored here on the host, fused into the D2H/output tail.  Runs    */
+/* are passed as per-run pointers — no concatenation copy (a lazily-   */
+/* backed VM faults fresh pages at ~0.02 GB/s).  Output                */
 /* counts are int64 (sums of per-run totals).  Returns the merged      */
 /* distinct count.  Binary min-heap on (code, run); G <= 64.           */
 

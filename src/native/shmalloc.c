@@ -3,8 +3,8 @@
  *
  * Why: on lazily-backed VMs (firecracker snapshots) PRIVATE anonymous
  * pages demand-fault through the hypervisor at ~17 MB/s, while SHARED
- * anonymous (shmem) pages fault at memory speed (~1.5 GB/s measured;
- * bench/RESULTS.md round 2 "host page-fault pathology").  Every large
+ * anonymous (shmem) pages fault at memory speed (~1.5 GB/s, measured on
+ * the previous host VM; ROADMAP D10).  Every large
  * numpy buffer — including the D2H destinations np.asarray() creates
  * for device pulls — goes through numpy's data allocator, so installing
  * a PyDataMem handler that mmaps MAP_SHARED|MAP_ANONYMOUS for sizes

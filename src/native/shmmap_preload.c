@@ -4,8 +4,8 @@
  * On this lazily-backed VM class, PRIVATE anonymous pages are remotely
  * demand-backed (~5-20 MB/s first touch, and degradable to that rate
  * even when warm under host pressure) while SHARED anonymous (shmem)
- * pages run at memory speed (bench/RESULTS.md round 2 "host page-fault
- * pathology").  findkmer_shmalloc covers numpy buffers; this shim
+ * pages run at memory speed (measured on the previous host VM; ROADMAP
+ * D10).  findkmer_shmalloc covers numpy buffers; this shim
  * covers everything else that matters — the PJRT/jax host staging
  * buffers D2H transfers land in, glibc malloc's large mmap'd blocks,
  * and arena allocators.

@@ -7,7 +7,7 @@ randomized AND adversarial inputs (byte soup, truncated/CRLF/garbage
 FASTQ, zero-length reads, reads shorter than k, boundary offsets,
 corrupted spectra) under AddressSanitizer + UBSan.  Deliberately
 jax-free: whole-process ASan trips over jaxlib's C++ exception
-interceptors (see bench/RESULTS.md round 5), so the C library is
+interceptors, so the C library is
 exercised in isolation where every byte of every access is checked.
 
 Run:

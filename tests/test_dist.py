@@ -213,3 +213,23 @@ def test_sparse_dist_capacity_error(rng):
     )
     with pytest.raises(RuntimeError, match="sparse_capacity"):
         _count_dist(text, cfg, 8)
+
+
+@pytest.mark.parametrize("merge,k,width", [
+    ("psum", 8, 4 ** 8), ("psum_scatter", 8, 4 ** 8),
+    ("all_to_all", 11, 4 ** 11 // 4),
+])
+def test_dense_state_starts_sharded(merge, k, width):
+    """The zero table is made as one slice per device, on that device."""
+    cfg = Config(k=k, chunk_len=64, batch_rows=8, merge=merge,
+                 table_mode="direct")
+    dc = DistributedCounter(cfg, make_mesh(4))
+    state = dc.init_state()
+    table = state[0] if merge == "all_to_all" else state
+    assert table.sharding == dc._state_sharding
+    shards = table.addressable_shards
+    assert sorted(s.device.id for s in shards) == [
+        d.id for d in jax.devices()[:4]
+    ]
+    assert all(s.data.shape == (1, width) for s in shards)
+    assert not np.asarray(table).any()

@@ -180,3 +180,42 @@ def test_prefetch_consumer_exception_cleans_up(tmp_path):
         _time.sleep(0.02)
     assert threading.active_count() == before, "producer thread leaked"
     assert closed["v"], "batch generator (reader) was not closed"
+
+
+@pytest.mark.parametrize("cc", ["/nonexistent/cc", "false"])
+def test_native_build_reports_failure(monkeypatch, capsys, cc):
+    """A failed build (missing compiler, compiler error) says why, on
+    stderr and through load_error()."""
+    from findkmer_tpu.io import native
+
+    monkeypatch.setattr(native, "_error", "")
+    monkeypatch.setattr(native, "_CC", cc)
+    assert not native.build(quiet=False)
+    assert cc in native.load_error()
+    assert cc in capsys.readouterr().err
+
+
+def test_native_build_reports_timeout(monkeypatch):
+    import subprocess
+
+    from findkmer_tpu.io import native
+
+    def slow(cmd, **kw):
+        raise subprocess.TimeoutExpired(cmd, kw["timeout"])
+
+    monkeypatch.setattr(native, "_error", "")
+    monkeypatch.setattr(native.subprocess, "run", slow)
+    assert not native.build()
+    assert "timed out" in native.load_error()
+
+
+def test_native_load_reports_bad_library(monkeypatch, tmp_path):
+    from findkmer_tpu.io import native
+
+    bad = tmp_path / "libfindkmer_encode.so"
+    bad.write_bytes(b"not an ELF file")
+    for name, value in (("_lib", None), ("_load_attempted", False),
+                        ("_error", ""), ("_lib_path", lambda: bad)):
+        monkeypatch.setattr(native, name, value)
+    assert not native.available()
+    assert str(bad) in native.load_error()

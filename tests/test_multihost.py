@@ -2,12 +2,14 @@
 multi-host merge logic unit-tested without comms)."""
 
 import numpy as np
+import pytest
 
 from conftest import random_dna
 from findkmer_tpu.config import Config
 from findkmer_tpu import pipeline
 from findkmer_tpu.parallel.multihost import (
     initialize,
+    local_device_ids_for,
     process_batch_count,
     shard_batches_round_robin,
 )
@@ -16,6 +18,17 @@ from findkmer_tpu.models.counter import KmerCounter
 
 def test_initialize_single_process_noop():
     assert initialize(None, 1, 0) == (1, 0)
+
+
+@pytest.mark.parametrize("coord,environ,want", [
+    ("127.0.0.1:1234", {}, [2]),          # one host: process i, card i
+    ("localhost:1234", {}, [2]),
+    ("10.0.0.7:1234", {}, None),          # across hosts: the launcher's
+    ("127.0.0.1:1234", {"CUDA_VISIBLE_DEVICES": "3"}, None),  # choice
+    ("127.0.0.1:1234", {"JAX_LOCAL_DEVICE_IDS": "3"}, None),
+])
+def test_one_card_per_process(coord, environ, want):
+    assert local_device_ids_for(coord, 2, environ) == want
 
 
 def test_round_robin_partition():

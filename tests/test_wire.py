@@ -1,6 +1,5 @@
 """Ordered-finalize wire v2: every code-leg x count-leg combination is
-byte-exact vs the oracle (round-5 redesign; see ops/sparse.py "wire v2"
-and bench/RESULTS.md).
+byte-exact vs the oracle (see ops/sparse.py "wire v2").
 
 The legs are DATA-gated (byte-plane codes when the top-24 run table is
 small; count plane when exceptions would outweigh it), so these tests
